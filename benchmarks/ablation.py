@@ -21,6 +21,7 @@ import jax.numpy as jnp
 
 import irm_motion_planning_tpu as mp
 from irm_motion_planning_tpu.solvers import bls, gd
+from irm_motion_planning_tpu.utils import compile_cache
 
 # Reference's published table (blog-post.html:555-582), for side-by-side.
 REFERENCE_TABLE = {
@@ -36,6 +37,7 @@ def main():
     p = argparse.ArgumentParser()
     p.add_argument("--solver", choices=["bls", "gd"], default="bls")
     args = p.parse_args()
+    compile_cache.enable()
     solver = {"bls": bls, "gd": gd}[args.solver]
 
     rows = []

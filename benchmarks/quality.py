@@ -1,15 +1,15 @@
-"""Cross-backend quality-distribution gate.
+"""Cross-device quality-distribution gate.
 
 Per-scene outcomes are fp-path-dependent (the early-stop threshold 1e-3 sits
-below cross-engine f32 noise ~5e-3, see CLAUDE.md), so backends must be
-compared DISTRIBUTIONALLY: run the same random scenario batch through each
-backend and compare converged fraction and the final-cost distribution.
-This is the runtime gate that the Pallas fast paths (approx reciprocal,
-linearized ladder, fused whole-solve kernel) trade only fp noise, not
-solution quality.
+below cross-path f32 noise ~5e-3, see CLAUDE.md), so two fp paths must be
+compared DISTRIBUTIONALLY: run the same random scenario batch through the
+fleet engine on each named device platform and compare converged fraction
+and the final-cost distribution against the first.  ``--devices cpu,gpu``
+gates the GPU against the plain reference (the same engine at
+Precision.HIGHEST on the host CPU).
 
-Usage:  python benchmarks/quality.py [--batch 32768] [--backends xla,pallas,fused]
-Prints one JSON line per backend plus a verdict line.
+Usage:  python benchmarks/quality.py [--batch 32768] [--devices cpu,gpu]
+Prints one JSON line per device plus a verdict line.
 """
 
 import os
@@ -21,18 +21,11 @@ import argparse
 import json
 
 import jax
-
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                 ".jax_cache"),
-)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
 import jax.numpy as jnp
 
 import irm_motion_planning_tpu as mp
 from irm_motion_planning_tpu.solvers import fleet
+from irm_motion_planning_tpu.utils import compile_cache
 
 
 def summarize(cfg, basis, scns, res):
@@ -53,12 +46,10 @@ def summarize(cfg, basis, scns, res):
 
     avg, mx, err = jax.vmap(lane_stats)(res.alpha, scns)
     conv = res.stats.converged
-    # Certification of the converged flags (VERDICT r3 #1): re-evaluate
-    # every lane's final alpha EXACTLY (fleet_evaluate from alpha — the
-    # reference's constraint protocol, ref trajectory.py:129-137) and count
-    # phantom convergences (flag set, exact check violated).  With
-    # config.exact_constraint_eval=True this must be 0; False reproduces the
-    # round-3 linearized-carry behavior for A/B measurement.
+    # Certification of the converged flags: re-evaluate every lane's final
+    # alpha EXACTLY (fleet_evaluate from alpha — the reference's constraint
+    # protocol, ref trajectory.py:129-137) and count phantom convergences
+    # (flag set, exact check violated).
     ok_exact = jax.jit(fleet.fleet_constraints, static_argnums=0)(
         cfg, basis, fleet.to_fleet(scns), fleet.alpha_to_fleet(res.alpha)
     )
@@ -84,7 +75,9 @@ def summarize(cfg, basis, scns, res):
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--batch", type=int, default=32768)
-    p.add_argument("--backends", default="xla,pallas,fused")
+    p.add_argument("--devices", default="cpu,gpu",
+                   help="comma-separated device platforms; the first is "
+                        "the baseline the others are gated against")
     p.add_argument("--solver", choices=["bls", "gd"], default="bls")
     p.add_argument("--inner", type=int, default=15)
     p.add_argument("--schedule", action="store_true",
@@ -94,32 +87,19 @@ def main():
     p.add_argument("--ladder-eval", choices=["linearized", "exact"],
                    default="linearized")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--recip-newton", type=lambda x: str(x).lower() == "true",
-                   default=True,
-                   help="in-kernel reciprocal refinement (the xla backend "
-                        "ignores it — exact divides — so xla,fused with "
-                        "False gates the raw hw approximation)")
-    p.add_argument("--exact-constraint-eval",
-                   type=lambda x: str(x).lower() == "true", default=True,
-                   help="False = round-3 behavior (kernel constraint checks "
-                        "on the linearized carried trajectory) for A/B "
-                        "phantom-rate measurement")
     p.add_argument("--tol-conv", type=float, default=0.02,
-                   help="max allowed converged-fraction gap vs first backend "
+                   help="max allowed converged-fraction gap vs the first device "
                         "(absolute floor; the effective bound is "
                         "max(tol_conv, 0.15 * base fraction) — boundary-lane "
                         "flips at the sharp eps thresholds scale with the "
                         "converged population).  Convergence = "
                         "hard-constraint satisfaction at eps 0.01 while the "
                         "endpoint-error p90 on random scenes is ~0.03, so "
-                        "lanes flip either way under fp-path noise; measured "
-                        "TPU gaps xla vs pallas/fused: 0.015 at 11-13% "
-                        "converged (uniform-15), 0.029 at 25-27% (benchmark "
-                        "schedule) — cost distributions identical to ~5e-4 "
-                        "relative in both.")
+                        "lanes flip either way under fp-path noise.")
     p.add_argument("--tol-cost", type=float, default=0.01,
-                   help="max allowed relative mean-cost gap vs first backend")
+                   help="max allowed relative mean-cost gap vs the first device")
     args = p.parse_args()
+    compile_cache.enable()
 
     if args.schedule:
         sched = {"bls": mp.REFERENCE_INNER_SCHEDULE_BLS,
@@ -128,22 +108,22 @@ def main():
     else:
         sched_kw = dict(max_inner_iteration=args.inner)
     cfg = mp.PlannerConfig(
-        bls_mode="ladder", fixed_iters=True,
-        recip_newton=args.recip_newton, ladder_eval=args.ladder_eval,
-        exact_constraint_eval=args.exact_constraint_eval,
+        bls_mode="ladder", fixed_iters=True, ladder_eval=args.ladder_eval,
         **sched_kw,
     )
-    basis = mp.make_basis(cfg)
+    basis = mp.make_basis(cfg)  # fitted on the host CPU for every device
     scns = mp.random_scenarios(cfg, jax.random.PRNGKey(args.seed), args.batch)
 
     rows = {}
-    for backend in args.backends.split(","):
-        run = fleet.make_fleet_solver(cfg, basis, solver=args.solver,
-                                      backend=backend)
-        res = jax.block_until_ready(run(scns))
-        rows[backend] = summarize(cfg, basis, scns, res)
-        print(json.dumps({"backend": backend, **rows[backend]}),
-              file=sys.stderr)
+    for i, platform in enumerate(args.devices.split(",")):
+        dev = jax.devices(platform)[0]
+        basis_d, scns_d = jax.device_put((basis, scns), dev)
+        res = jax.block_until_ready(fleet.make_fleet_solver(
+            cfg, basis_d, solver=args.solver)(scns_d))
+        name = platform if platform not in rows else f"{platform}#{i}"
+        rows[name] = summarize(cfg, basis_d, scns_d, res)
+        print(json.dumps({"device": name, "kind": dev.device_kind,
+                          **rows[name]}), file=sys.stderr)
 
     names = list(rows)
     base = rows[names[0]]
@@ -163,7 +143,7 @@ def main():
     print(json.dumps({
         "metric": "quality_distribution_gate",
         "batch": args.batch,
-        "backends": rows,
+        "devices": rows,
         "pass": ok,
     }))
     return 0 if ok else 1

@@ -1,16 +1,13 @@
-"""Seed sweep of the cross-backend quality distribution (VERDICT r2 item 3).
+"""Seed sweep of the cross-device quality distribution.
 
-Round 2 observed a directional converged-fraction gap (xla 24.6% vs
-pallas/fused 27.5% on one 32k batch under the bench schedule) and widened
-the gate tolerance to fit it.  This sweep settles whether that gap is
-zero-mean boundary-lane fp noise (its sign flips across seeds) or a real
-directional effect of the kernel fp paths: it runs benchmarks/quality.py's
-measurement at N seeds and reports the per-seed converged-fraction and
-mean-cost deltas per backend pair, plus sign statistics.
+A converged-fraction gap between two fp paths on one batch can be zero-mean
+boundary-lane fp noise (its sign flips across seeds) or a real directional
+effect.  This sweep runs benchmarks/quality.py's measurement at N seeds on
+each named device platform and reports the per-seed converged-fraction and
+mean-cost deltas against the first, plus sign statistics.
 
-Usage (TPU):  python benchmarks/quality_sweep.py --seeds 0,1,2,3,4
-Writes one JSON line (stdout) and is meant to be captured into
-QUALITY_SWEEP_r*.json.
+Usage:  python benchmarks/quality_sweep.py --seeds 0,1,2,3,4 --devices cpu,gpu
+Writes one JSON line (stdout).
 """
 
 import os
@@ -23,15 +20,9 @@ import json
 
 import jax
 
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                 ".jax_cache"),
-)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
 import irm_motion_planning_tpu as mp
 from irm_motion_planning_tpu.solvers import fleet
+from irm_motion_planning_tpu.utils import compile_cache
 from quality import summarize  # noqa: E402  (sibling module)
 
 
@@ -39,11 +30,14 @@ def main():
     p = argparse.ArgumentParser()
     p.add_argument("--seeds", default="0,1,2,3,4")
     p.add_argument("--batch", type=int, default=32768)
-    p.add_argument("--backends", default="xla,pallas,fused")
+    p.add_argument("--devices", default="cpu,gpu",
+                   help="comma-separated device platforms; deltas are "
+                        "taken against the first")
     p.add_argument("--solver", choices=["bls", "gd"], default="bls")
     p.add_argument("--schedule", action="store_true", default=True,
                    help="benchmark per-round schedule (the headline config)")
     args = p.parse_args()
+    compile_cache.enable()
 
     sched = {"bls": mp.REFERENCE_INNER_SCHEDULE_BLS,
              "gd": mp.REFERENCE_INNER_SCHEDULE_GD}[args.solver]
@@ -51,27 +45,30 @@ def main():
         bls_mode="ladder", fixed_iters=True,
         inner_schedule=sched, max_inner_iteration=max(sched),
     )
-    basis = mp.make_basis(cfg)
-    backends = args.backends.split(",")
+    platforms = args.devices.split(",")
+    devices = {p: jax.devices(p)[0] for p in platforms}
+    bases = {p: jax.device_put(mp.make_basis(cfg), d)
+             for p, d in devices.items()}
     runners = {
-        b: fleet.make_fleet_solver(cfg, basis, solver=args.solver, backend=b)
-        for b in backends
+        p: fleet.make_fleet_solver(cfg, bases[p], solver=args.solver)
+        for p in platforms
     }
 
     per_seed = []
     for seed in [int(s) for s in args.seeds.split(",")]:
         scns = mp.random_scenarios(cfg, jax.random.PRNGKey(seed), args.batch)
         row = {"seed": seed}
-        for b in backends:
-            res = jax.block_until_ready(runners[b](scns))
-            row[b] = summarize(cfg, basis, scns, res)
-            print(json.dumps({"seed": seed, "backend": b, **row[b]}),
+        for b in platforms:
+            scns_d = jax.device_put(scns, devices[b])
+            res = jax.block_until_ready(runners[b](scns_d))
+            row[b] = summarize(cfg, bases[b], scns_d, res)
+            print(json.dumps({"seed": seed, "device": b, **row[b]}),
                   file=sys.stderr, flush=True)
         per_seed.append(row)
 
-    base = backends[0]
+    base = platforms[0]
     deltas = {}
-    for b in backends[1:]:
+    for b in platforms[1:]:
         dc = [r[b]["converged_frac"] - r[base]["converged_frac"]
               for r in per_seed]
         dm = [r[b]["avg_cost_mean"] - r[base]["avg_cost_mean"]
@@ -86,6 +83,7 @@ def main():
         "metric": "quality_seed_sweep",
         "batch": args.batch,
         "solver": args.solver,
+        "devices": {p: d.device_kind for p, d in devices.items()},
         "schedule": list(sched),
         "per_seed": per_seed,
         "deltas": deltas,

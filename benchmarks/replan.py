@@ -9,7 +9,7 @@ that loop explicitly:
 * each tick solves warm-started from the previous tick's alpha under a
   budgeted iteration horizon (bounded per-tick latency),
 * measured single-scene (reference-comparable Hz) and as a batched fleet
-  (many arms replanning in one device program — the TPU-native axis).
+  (many arms replanning in one device program).
 
 Usage:  python benchmarks/replan.py [--ticks 100] [--batch 0]
 Prints one JSON line per mode plus a summary line.
@@ -31,6 +31,7 @@ import numpy as np
 import irm_motion_planning_tpu as mp
 from irm_motion_planning_tpu.ops.scenario import Scenario
 from irm_motion_planning_tpu.solvers.replan import Replanner
+from irm_motion_planning_tpu.utils import compile_cache
 
 REF_REPLAN_HZ = 50.0  # DevBlog blog-post.html:232,350
 
@@ -54,9 +55,9 @@ def drift_obstacles(scn: Scenario, tick: int, amp: float = 0.15) -> Scenario:
     )
 
 
-def run_mode(cfg, scn, ticks, batched, engine="vmap", backend="xla"):
+def run_mode(cfg, scn, ticks, batched, engine="vmap"):
     rp = Replanner(cfg, budget_outer=2, budget_inner=25, batched=batched,
-                   engine=engine, backend=backend)
+                   engine=engine)
     # Warm-up tick: compile excluded (ref protocol: optimizer_BLS.py:50-54).
     jax.block_until_ready(rp.plan(drift_obstacles(scn, 0)).alpha)
     t0 = time.time()
@@ -80,12 +81,12 @@ def stack_ticks(scn, ticks):
     )
 
 
-def run_rollout(cfg, scn, ticks, batched, engine, backend):
+def run_rollout(cfg, scn, ticks, batched, engine):
     """On-device replanning loop: ONE dispatch replans all ticks
     (lax.scan carrying the warm start) — removes per-tick solver-dispatch
     latency from the loop entirely."""
     rp = Replanner(cfg, budget_outer=2, budget_inner=25, batched=batched,
-                   engine=engine, backend=backend)
+                   engine=engine)
     scn_ticks = stack_ticks(scn, ticks)
     rp.plan_rollout(scn_ticks)  # compile + warm-up
     rp.reset()
@@ -104,20 +105,20 @@ def main():
                    help="fleet size for the batched mode (0 = skip)")
     p.add_argument("--solver", choices=["bls", "gd"], default="bls")
     p.add_argument("--engine", choices=["fleet", "vmap"], default="fleet",
-                   help="fleet = lane-padded fused kernel for single scene, "
-                        "MXU layout for batched; vmap = portable sequential")
-    p.add_argument("--backend", choices=["fused", "pallas", "xla"],
-                   default="fused", help="fleet backend (fused needs a TPU)")
+                   help="fleet = the batch-trailing fleet engine (a "
+                        "one-lane fleet for the single scene); vmap = the "
+                        "sequential solver per lane")
     p.add_argument("--rollout", type=lambda x: str(x).lower() == "true",
                    default=True,
                    help="also measure the on-device lax.scan tick loop")
     args = p.parse_args()
+    compile_cache.enable()
 
     cfg = mp.PlannerConfig(bls_mode="ladder")
     scn1 = mp.reference_scenario(cfg)
 
     hz, ms, cost = run_mode(cfg, scn1, args.ticks, batched=False,
-                            engine=args.engine, backend=args.backend)
+                            engine=args.engine)
     print(json.dumps({
         "metric": "replan_rate_single_scene",
         "value": round(hz, 1), "unit": "Hz",
@@ -127,7 +128,7 @@ def main():
 
     if args.rollout:
         hz, ms, cost = run_rollout(cfg, scn1, args.ticks, batched=False,
-                                   engine=args.engine, backend=args.backend)
+                                   engine=args.engine)
         print(json.dumps({
             "metric": "replan_rate_single_scene_ondevice",
             "value": round(hz, 1), "unit": "Hz",
@@ -138,7 +139,7 @@ def main():
     if args.batch > 0:
         scnB = mp.replicate_scenario(scn1, args.batch)
         hz, ms, cost = run_mode(cfg, scnB, args.ticks, batched=True,
-                                engine=args.engine, backend=args.backend)
+                                engine=args.engine)
         print(json.dumps({
             "metric": "replan_rate_fleet",
             "batch": args.batch,
@@ -149,8 +150,7 @@ def main():
 
         if args.rollout:
             hz, ms, cost = run_rollout(cfg, scnB, args.ticks, batched=True,
-                                       engine=args.engine,
-                                       backend=args.backend)
+                                       engine=args.engine)
             print(json.dumps({
                 "metric": "replan_rate_fleet_ondevice",
                 "batch": args.batch,

@@ -1,10 +1,10 @@
-"""irm_motion_planning_tpu — a TPU-native RKHS trajectory-optimization engine.
+"""irm_motion_planning_tpu — a batched RKHS trajectory-optimization engine.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 simongroeger/irm_motion_planning: collision-free trajectory planning for a
 planar n-link arm via RKHS trajectory parametrization and penalty-method
-functional-gradient optimization — batched over thousands of scenarios per
-chip and sharded over TPU pod slices.
+functional-gradient optimization — batched over hundreds of thousands of
+scenarios per GPU and sharded over a device mesh.
 """
 
 from .config import (

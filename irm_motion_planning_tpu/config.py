@@ -1,4 +1,4 @@
-"""Typed configuration for the TPU-native RKHS trajectory-optimization engine.
+"""Typed configuration for the RKHS trajectory-optimization engine.
 
 Design: the reference (ref: main.py:13-102) plumbs ~30 argparse flags as
 Python attributes that get closed over inside jitted functions.  We make the
@@ -32,41 +32,35 @@ _DEFAULT_GD_LR: Tuple[float, ...] = (
 # fp-path step-count wobble across engines never truncates a round, and
 # extra budget in the LATE rounds: there the penalty weights are large
 # enough to pull the endpoints down, and a couple of extra steps is what
-# separates "constraints satisfied" (BLS: endpoint err 0.0096, measured TPU
-# fused path) from the reference's own constraint-violated finish (0.046).
-# Budgeted-but-unneeded steps cost (almost) nothing: lanes freeze at the
-# loss plateau, and the Pallas kernels skip whole frozen tiles.
+# separates "constraints satisfied" from the reference's own
+# constraint-violated finish (0.046).  Budgeted-but-unneeded steps change
+# nothing: lanes freeze at the loss plateau.
 #
-# BLS endpoint margin (round-4 sweep, benchmarks/schedule_sweep.py,
-# SCHED_SWEEP_r04.json): 0.0096 is the DETERMINISTIC FIXED POINT of this
-# schedule family — 24 variants land at 0.00956-0.00962 identically
-# whenever every round reaches its 1e-3 plateau; extra budget anywhere is
-# simply unused, extra MID/LATE-round *accepted* steps overshoot to
-# 0.016-0.031, and truncating any round below its plateau jumps to >=0.016.
-# There is no <=0.008 schedule within reference semantics (the plateau
-# freeze caps the pull — the same mechanism that stops GD at 0.034).
+# BLS endpoint on the reference scene (fleet engine, linearized ladder):
+# 0.0093 on CPU, 0.0091 on an H100, from the same CPU-fitted basis — both
+# under eps_position 0.01, which gates it.  The value is a property of the
+# fp path (the GEMM and reduction order of each platform), so the margin is
+# checked on every run by bench.py and chip_smoke.py, never assumed.
+# Extra MID/LATE-round *accepted* steps overshoot the endpoint, and
+# truncating a round below its 1e-3 plateau leaves it violated.
 #
-# GD (round-3 sweeps, TPU fused kernel, reference scene): the endpoint is
-# pulled by rounds 4-8, where the effective endpoint step lambda_sg*gd_lr
-# stays ~5e-4/step (lambda rises 10x per violated round while the reference
-# lr schedule, ref main.py:85-86, decays); round 9's lambda*lr reaches ~5 —
-# unstable, its first trial step raises the loss and the lane freezes, so
-# budget there is wasted.  Measured tail ladder (TPU fused, B=128): the
-# round-2 tail 8/4/4/4/4/4 ends at 0.061 (WORSE than the reference GD's own
-# violated 0.042 finish — retired); 16/32/64/64/32/4 at 0.026 (283 live
-# steps); the shipped 16/24/40/40/24/4 at 0.034 (251 live steps) — the
-# cheapest tail that keeps ~20% margin under the 0.042 gate against
-# fp-path wobble (per-scene outcomes are path-dependent, CLAUDE.md).
-# Pushing budget UP past 64s hits the 1e-3 loss-reduction freeze, not the
-# budget — eps_position is unreachable under reference GD semantics.
+# GD: the endpoint is pulled by rounds 4-8, where the effective endpoint
+# step lambda_sg*gd_lr stays ~5e-4/step (lambda rises 10x per violated round
+# while the reference lr schedule, ref main.py:85-86, decays); round 9's
+# lambda*lr reaches ~5 — unstable, its first trial step raises the loss and
+# the lane freezes, so budget there is wasted.  The tail 16/24/40/40/24/4
+# lands at 0.039 on CPU and 0.035 on an H100, under the reference GD's own
+# violated 0.042 finish, which gates it.  Pushing budget past 64 per round
+# hits the 1e-3 loss-reduction freeze, not the budget — eps_position is
+# unreachable under reference GD semantics.
 REFERENCE_INNER_SCHEDULE_BLS: Tuple[int, ...] = (48, 8, 4, 32, 64, 16, 8, 8, 8, 8)
 REFERENCE_INNER_SCHEDULE_GD: Tuple[int, ...] = (172, 8, 12, 20, 16, 24, 40, 40, 24, 4)
 
 # Final avg/max unpenalized obstacle costs of the reference's flagship runs
 # on the reference scene (ref: main.py:141-143), from the runs that produced
 # tests/goldens/.  THE single source for every quality gate — bench.py,
-# benchmarks/tpu_smoke.py, and tests/test_parity.py all compare against
-# these (see ops/costs.py::solution_quality for the matching evaluation).
+# chip_smoke.py, and tests/test_parity.py all compare against these (see
+# ops/costs.py::solution_quality for the matching evaluation).
 REFERENCE_FINAL_COST = {
     "bls": (1.6370234, 2.1964114),
     "gd": (1.6673477, 2.2091691),
@@ -139,18 +133,18 @@ class PlannerConfig:
     # --- Gradient descent (ref: main.py:85-86) ---
     gd_lr: Tuple[float, ...] = _DEFAULT_GD_LR
 
-    # --- TPU-native execution knobs (no reference equivalent) ---
+    # --- Execution knobs (no reference equivalent) ---
     # 'sequential' replicates the reference's backtracking while_loop
     # (ref: optimizer_BLS.py:130-150).  'ladder' evaluates the geometric
     # learning-rate ladder lr*beta_minus**j for all j in one batched cost
-    # evaluation and selects the first Armijo-passing step — one matmul
-    # instead of a data-dependent loop; a far better fit for the MXU.
+    # evaluation and selects the first Armijo-passing step — one batched
+    # evaluation instead of a data-dependent loop.
     bls_mode: Literal["sequential", "ladder"] = "ladder"
     # Run loops to their caps with per-lane done-masking instead of
     # early-exiting while_loops.  Fixed horizons are what batch/shard without
     # divergence stragglers; required for the throughput benchmark.
     fixed_iters: bool = False
-    # How the fleet/kernel engines evaluate line-search candidates:
+    # How the fleet engine evaluates line-search candidates:
     # 'linearized' (default, fastest) exploits that the RKHS map is linear
     # in alpha — every rung's trajectory is an affine combination of two
     # already-evaluated points, zero basis GEMMs per rung.  Exact in real
@@ -159,77 +153,12 @@ class PlannerConfig:
     # candidate through the basis GEMMs like the reference does — measured
     # +0.17% avg-cost gap — at the cost of forward GEMMs per rung.
     ladder_eval: Literal["linearized", "exact"] = "linearized"
-    # f32 matmul precision on the MXU ('highest' = f32-accurate for parity
-    # with the CPU reference; 'default' = bf16 passes, fastest).
+    # f32 matmul precision of every dot in the engine (models/rkhs.py::
+    # _precision is the one place it is applied).  'highest' = true f32,
+    # required for parity with the CPU reference: the RKHS fit's O(1e4)
+    # coefficients cancel to O(1) trajectories, which TF32 or bf16 passes
+    # ('default'/'high' on a GPU) cannot resolve.
     matmul_precision: Literal["default", "high", "highest"] = "highest"
-    # Lanes per Pallas kernel tile (batch must be a multiple).  Bigger tiles
-    # amortize per-tile scheduling overhead; bounded by VMEM.  0 = choose
-    # automatically from the scoped-VMEM model (ops/pallas_step.py::
-    # choose_block_b), which also raises the kernel's vmem limit for large
-    # problems so no legal choice can OOM at compile time.
-    pallas_block_b: int = 0
-    # Lane compaction for heterogeneous fleets (backend 'fused' only): run
-    # the dual loop as one fused-round kernel launch per penalty round and
-    # re-sort lanes ONCE, after round 0, by that round's observed
-    # accepted-step count (fulfilled lanes packed last).  A kernel tile
-    # stays live until its SLOWEST lane freezes, so grouping
-    # similar-convergence lanes lets tiles freeze (and fulfilled tiles skip
-    # whole rounds) instead of being pinned live by scattered stragglers.
-    # One resort is the measured sweet spot: TPU lane permutation is
-    # expensive and later resorts add no signal (policy table in
-    # solvers/fleet.py::_pallas_fused_rounds_solve).
-    # Per-lane results are BITWISE identical to the whole-solve kernel (all
-    # lane ops are elementwise; freeze/skip are identity pass-throughs) —
-    # only throughput changes.  Pointless for replicated-scene batches
-    # (lanes are already in lockstep); measured on random scenarios in
-    # docs/REPORT.md §9.
-    lane_compaction: bool = False
-    # Run the first k Armijo rungs of the in-kernel BLS ladder BRANCH-FREE
-    # before entering the early-exit while-loop (0 = all rungs in the loop).
-    # Measured bench-schedule ladder-exit distribution (reference scene):
-    # p50 = 1 rung, 79% of steps exit by rung 2, mean 3.19 — so unroll=2
-    # lets most steps skip the Mosaic while-loop (and its per-iteration
-    # carry/select overhead) at the cost of computing one extra rung body
-    # on rung-1 exits.  Bitwise-neutral: the unrolled rungs run the same op
-    # sequence as the loop body (pallas_step.rung_eval), and rungs after
-    # the first Armijo pass only feed found-masked selects.
-    bls_ladder_unroll: int = 2
-    # Check the hard constraints on the EXACTLY-evaluated trajectory at each
-    # penalty-round end, like the reference (ref: trajectory.py:129-137 runs
-    # constraintsFulfilled on evaluate(alpha)).  Only the BLS linearized
-    # ladder carries an approximate (traj, vel) — the affine-combination
-    # accumulation over a round's inner steps — so for that path the kernel
-    # engines re-run the forward basis GEMMs from alpha (one extra forward
-    # per penalty round, <1% of a round's compute) before constraints_ok;
-    # all other paths (GD, exact ladder, the XLA fleet) already evaluate
-    # exactly and ignore this flag.  False = round-3 behavior (constraints
-    # on the linearized carried trajectory): measured on TPU (32k random
-    # scenes, bench schedule, benchmarks/quality.py --exact-constraint-eval
-    # false) that certifies 8.2% of ALL lanes as converged while their
-    # exact evaluation VIOLATES the constraints — 30% of the kernels'
-    # claimed 27.5% convergence was phantom, and QUALITY_SWEEP_r03's
-    # +2.9-pt "surplus" was its net effect.  With True: phantom rate
-    # exactly 0, kernels 25.99% converged (exact) vs xla 24.59% — the
-    # residual +1.4 pt is genuine fp-path difference in certified-real
-    # convergences.  Kept only as an A/B measurement knob.
-    exact_constraint_eval: bool = True
-    # Refine the in-kernel approximate reciprocal with one Newton step
-    # (~1.4e-5 relative error; False = raw hardware approximation, ~2^-12).
-    # Both sit below the 5e-3 cross-engine fp noise floor.  Default False:
-    # gated on TPU vs the exact-divide xla backend on 32k random scenes
-    # (benchmarks/quality.py — cost distributions identical to 1e-4, same
-    # converged fraction) and worth +3.3% kernel throughput.
-    recip_newton: bool = False
-    # bf16 ladder tier for BLS past the f32 kernel wall (T > 2000): the
-    # in-step ladder planes are stored half-width, moving the fused-kernel
-    # ceiling to the chip-validated T=2200 at 4.3x the XLA fallback's
-    # speed and obstacle-cost parity (measured -0.2%) — but direction
-    # quantization caps endpoint-pinning precision: converged fraction
-    # 1.5% vs the fallback's 11.5% on T=2200 random scenes (uniform-15).
-    # OPT-IN because of that trade: default False routes T>2000 to the
-    # XLA fallback (quality-first); set True when throughput at extreme
-    # problem sizes matters more than the constraint-satisfaction rate.
-    bls_bf16_ladder: bool = False
 
     def __post_init__(self) -> None:
         if self.n_joints != len(self.link_length):

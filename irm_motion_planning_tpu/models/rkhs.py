@@ -13,8 +13,8 @@ Capability parity with the reference trajectory parametrization
 * the basis is an explicit immutable pytree (runtime data, not object state),
 * ``evaluate`` returns position and velocity in one pass (the reference
   evaluates the two Gram matrices in separate calls, ref: trajectory.py:273-274
-  — on TPU we stack them into a single (2T, T) matmul so the MXU sees one
-  bigger GEMM and the alpha operand is read once),
+  — we stack them into a single (2T, T) matmul: one bigger GEMM, and the
+  alpha operand is read once),
 * initialization is the reference's quintic-smoothstep least-squares fit
   (ref: trajectory.py:73-78) with the T x T solve Cholesky-factored once at
   basis build, so per-solve warm starts are two triangular solves.
@@ -26,6 +26,7 @@ from typing import NamedTuple, Tuple
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 from ..config import PlannerConfig
 
@@ -74,7 +75,22 @@ class Basis(NamedTuple):
 
 
 def make_basis(cfg: PlannerConfig) -> Basis:
-    """Build the RKHS basis for a config.  Pure; call once at setup."""
+    """Build the RKHS basis for a config; call once at setup.
+
+    The basis is fitted on the host CPU on every platform, on purpose, and
+    then placed on the default device.  Its Gram solves are ~1e15-
+    conditioned, so the LU decides the init coefficients: a GPU's LU
+    (cuSOLVER) moves init_u by O(1e3) from the CPU's, and that alone moves
+    the fraction of random scenes that converge by several points.  One fit
+    on one platform gives every device the same basis as the CPU reference.
+    """
+    with jax.default_device(jax.local_devices(backend="cpu")[0]):
+        basis = fit_basis(cfg)
+    return jax.tree_util.tree_map(lambda a: jnp.asarray(np.asarray(a)), basis)
+
+
+def fit_basis(cfg: PlannerConfig) -> Basis:
+    """The basis fit itself, on whatever device traces or runs it."""
     t = jnp.linspace(0.0, 1.0, cfg.n_timesteps, dtype=jnp.float32)
     c = 6 * t**5 - 15 * t**4 + 10 * t**3
     # Gram matrices.  meshgrid semantics of the reference
@@ -171,4 +187,5 @@ def init_alpha(cfg: PlannerConfig, basis: Basis, start: jnp.ndarray, goal: jnp.n
     Returns ``alpha (T, J)``.
     """
     line = start + (goal - start) * basis.c[:, None]           # (T, J)
-    return jnp.linalg.solve(basis.km, line @ basis.mix_inv)
+    rhs = jnp.matmul(line, basis.mix_inv, precision=_precision(cfg))
+    return jnp.linalg.solve(basis.km, rhs)

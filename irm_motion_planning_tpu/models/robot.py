@@ -23,6 +23,7 @@ from __future__ import annotations
 import jax.numpy as jnp
 
 from ..config import PlannerConfig
+from .rkhs import _precision
 
 
 def link_lengths(cfg: PlannerConfig) -> jnp.ndarray:
@@ -44,8 +45,9 @@ def fk(cfg: PlannerConfig, config: jnp.ndarray) -> jnp.ndarray:
     """
     c = jnp.cumsum(config.reshape(-1, cfg.n_joints), axis=1)  # (T, J)
     ll = link_lengths(cfg)
-    pos_x = jnp.cos(c) @ ll  # (T,)
-    pos_y = jnp.sin(c) @ ll
+    prec = _precision(cfg)
+    pos_x = jnp.matmul(jnp.cos(c), ll, precision=prec)  # (T,)
+    pos_y = jnp.matmul(jnp.sin(c), ll, precision=prec)
     return jnp.stack((pos_x, pos_y))
 
 
@@ -54,7 +56,9 @@ def fk_joint(cfg: PlannerConfig, config: jnp.ndarray, joint_id: int) -> jnp.ndar
     fk_joint_1/2/3, ref: robot.py:39-72) for each timestep.  Returns (2, T)."""
     c = jnp.cumsum(config.reshape(-1, cfg.n_joints)[:, :joint_id], axis=1)
     ll = link_lengths(cfg)[:joint_id]
-    return jnp.stack((jnp.cos(c) @ ll, jnp.sin(c) @ ll))
+    prec = _precision(cfg)
+    return jnp.stack((jnp.matmul(jnp.cos(c), ll, precision=prec),
+                      jnp.matmul(jnp.sin(c), ll, precision=prec)))
 
 
 def fk_all_joints(cfg: PlannerConfig, config: jnp.ndarray) -> jnp.ndarray:

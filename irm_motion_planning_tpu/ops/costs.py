@@ -2,7 +2,7 @@
 gradients, and the fused total cost/gradient used by the solvers.
 
 Capability parity with the reference loss stack (ref: trajectory.py:81-297 and
-environment.py:32-72), with these TPU-first changes:
+environment.py:32-72), with these changes:
 
 * every function is stateless and vmaps over a scenario batch axis,
 * obstacles carry a weight vector (0 = padding) so obstacle count is a
@@ -113,7 +113,7 @@ def trajectory_obstacle_cost_g(
     cost_v, cost_g = obstacle_cost_vg(f, scn.obstacles, scn.obstacle_weight)
     w = blend_weights(cfg, cost_v)                     # (T,)
     jac = robot.jacobian(cfg, trajectory)              # (2, T, J)
-    return jnp.einsum("it,itj->tj", w * cost_g, jac)
+    return jnp.einsum("it,itj->tj", w * cost_g, jac, precision=_precision(cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -257,7 +257,7 @@ def cost_and_grad(
     toc = lam * jnp.max(cost_v) + (1.0 - lam) * jnp.mean(cost_v)
     w = blend_weights(cfg, cost_v)
     jac = robot.jacobian(cfg, trajectory)
-    toc_g = jnp.einsum("it,itj->tj", w * cost_g, jac)
+    toc_g = jnp.einsum("it,itj->tj", w * cost_g, jac, precision=_precision(cfg))
 
     sgpc = start_goal_cost(trajectory, scn.start, scn.goal)
     sgvc = start_goal_velocity_cost(velocity)
@@ -344,8 +344,8 @@ def solution_quality(cfg: PlannerConfig, basis: Basis, scn: Scenario, alpha) -> 
     """The reference's final quality readout (ref: main.py:141-143) as one
     helper: unpenalized obstacle cost under both lambda_max extremes plus
     the worst endpoint error.  Shared by every quality gate (bench.py,
-    benchmarks/tpu_smoke.py, tests/test_parity.py) so they can never drift
-    apart; compare against config.REFERENCE_FINAL_COST."""
+    chip_smoke.py, tests/test_parity.py) so they can never drift apart;
+    compare against config.REFERENCE_FINAL_COST."""
     pen0 = Penalty(jnp.float32(0), jnp.float32(0))
     avg = total_cost(cfg.replace(lambda_max_cost=0.0), basis, scn, pen0, alpha)
     mx = total_cost(cfg.replace(lambda_max_cost=1.0), basis, scn, pen0, alpha)

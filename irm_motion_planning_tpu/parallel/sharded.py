@@ -1,10 +1,10 @@
 """Sharded multi-chip solver: scenario-axis parallelism over a device mesh.
 
-Replaces the role NCCL/MPI plays in GPU frameworks with XLA collectives over
-ICI/DCN (SURVEY.md §5.8): the solve itself needs NO communication (scenarios
-are independent); `psum` collectives aggregate fleet-level convergence
-fractions and cost statistics across the mesh so every host sees global
-telemetry without gathering per-scenario results.
+The solve itself needs NO communication (scenarios are independent); `psum`
+collectives (NCCL on GPUs, gloo on CPU clusters) aggregate fleet-level
+convergence fractions and cost statistics across the mesh so every host sees
+global telemetry without gathering per-scenario results.  The mesh is 1-D
+over the scenario axis.
 
 Two entry points:
 
@@ -59,16 +59,13 @@ def make_shard_map_solver(
     mesh: Mesh,
     solver: str = "bls",
     engine: str = "vmap",
-    backend: str = "xla",
-    interpret: bool = False,
 ):
     """Explicit SPMD solver: each device runs the batched solve on its local
     scenario shard, then global fleet statistics are reduced with psum over
     the mesh (returned replicated on every device).
 
-    ``engine='fleet'`` runs the batch-trailing MXU engine per shard
-    (``backend='pallas'`` for the fused TPU kernels — the production
-    configuration for pod-scale sweeps).
+    ``engine='fleet'`` runs the batch-trailing fleet engine per shard — the
+    production configuration for multi-device sweeps.
 
     Returns ``scenarios -> (SolveResult sharded, stats dict replicated)``.
     """
@@ -77,10 +74,7 @@ def make_shard_map_solver(
         if engine == "fleet":
             from ..solvers.fleet import fleet_solve
 
-            res = fleet_solve(
-                cfg, basis_arg, scenarios, solver=solver, backend=backend,
-                interpret=interpret,
-            )
+            res = fleet_solve(cfg, basis_arg, scenarios, solver=solver)
         else:
             res = solve_batch(cfg, basis_arg, scenarios, solver=solver)
         n_local = res.stats.converged.shape[0]

@@ -1,6 +1,6 @@
 """Backtracking-line-search solver (Armijo) — the reference's flagship
-optimizer (ref: optimizer_BLS.py:22-213) — with a TPU-first redesign of the
-line search itself.
+optimizer (ref: optimizer_BLS.py:22-213) — with a batch-friendly redesign
+of the line search itself.
 
 Per inner step (ref: optimizer_BLS.py:159-179):
     loss, grad at alpha (fused here; the reference evaluates them separately)
@@ -24,9 +24,9 @@ Two line-search executions:
 * ``bls_mode='ladder'`` (default) — evaluate the whole geometric ladder
   ``lr * beta_minus**j, j = 0..max_bls_iteration-1`` as ONE batched cost
   evaluation and select the first Armijo-passing step.  The candidate axis
-  folds into the basis GEMM (the MXU sees (T, T) x (T, n_cand*J) instead of
-  20 sequential (T, T) x (T, J) matmuls), turning a branch-heavy loop into
-  dense compute — the right trade on a systolic-array machine.  Result is
+  folds into the basis GEMM ((T, T) x (T, n_cand*J) instead of 20
+  sequential (T, T) x (T, J) matmuls), turning a branch-heavy loop into
+  dense compute — the right trade on a wide accelerator.  Result is
   IDENTICAL to sequential mode: the ladder enumerates exactly the lrs the
   sequential loop would try, and first-passing selection mirrors its exit.
 """
@@ -39,12 +39,23 @@ import jax
 import jax.numpy as jnp
 
 from ..config import PlannerConfig
-from ..models.rkhs import Basis, init_alpha
+from ..models.rkhs import Basis, _precision, init_alpha
 from ..ops.costs import Penalty, cost_and_grad, total_cost
 from ..ops.scenario import Scenario
 from .common import (
     InnerFn, SolveResult, freeze_when, inner_loop_bound, run_dual_loop,
 )
+
+
+def descent_direction(cfg: PlannerConfig, grad):
+    """Normalized functional-gradient direction and its Armijo slope
+    (ref: optimizer_BLS.py:165-166).  The slope sums ALL (J, J) entries of
+    grad^T @ n_grad, like the reference (ref: optimizer_BLS.py:86)."""
+    n_grad = grad / jnp.linalg.norm(grad)
+    alpha_norm = jnp.sum(
+        jnp.matmul(grad.T, n_grad, precision=_precision(cfg))
+    )
+    return n_grad, alpha_norm
 
 
 def _trial(cfg: PlannerConfig, alpha, n_grad, lr):
@@ -171,10 +182,7 @@ def _make_inner(cfg: PlannerConfig, basis: Basis, scn: Scenario):
             loss0, grad0 = cost_and_grad(cfg, basis, scn, penalty, alpha)
 
             def _raw_body(state: _InnerState) -> _InnerState:
-                # Normalized functional-gradient direction
-                # (ref: optimizer_BLS.py:165-166).
-                n_grad = state.grad / jnp.linalg.norm(state.grad)
-                alpha_norm = jnp.sum(state.grad.T @ n_grad)
+                n_grad, alpha_norm = descent_direction(cfg, state.grad)
                 new_alpha, new_lr, new_loss, base_loss, _ = search(
                     cfg, basis, scn, penalty,
                     state.alpha, n_grad, alpha_norm, state.loss, state.bls_lr,

@@ -10,7 +10,7 @@ program over an explicit state pytree:
 * its non-dual ``jit_optimize`` (ref: optimizer_GD.py:68-97) is the special
   case ``max_outer_iteration=1`` — same update rule and stopping test, so no
   separate code path is needed,
-* TPU-first: loss and gradient come from ONE fused forward pass per step
+* loss and gradient come from ONE fused forward pass per step
   (the reference pays two, ref: optimizer_GD.py:184-186), and the loop state
   carries (loss, grad) at the current iterate so nothing is recomputed.
 

@@ -23,6 +23,7 @@ from ..config import PlannerConfig
 from ..models.rkhs import Basis, evaluate, init_alpha
 from ..ops.costs import Penalty, cost_and_grad, constraints_fulfilled, total_cost
 from ..ops.scenario import Scenario
+from .bls import descent_direction
 from .common import SolveResult, SolveStats
 
 
@@ -80,9 +81,7 @@ def _plain_bls(cfg, basis, scn, alpha0, record_series):
         bls_lr = cfg.bls_lr_start
         for _ in range(cfg.max_inner_iteration):
             loss, grad = cag(scn, pen, alpha)
-            n_grad = grad / jnp.linalg.norm(grad)
-            # reference quirk: sum over ALL (J, J) entries (optimizer_BLS.py:86)
-            alpha_norm = jnp.sum(grad.T @ n_grad)
+            n_grad, alpha_norm = descent_direction(cfg, grad)
             new_loss = loss
             for _ in range(cfg.max_bls_iteration):
                 new_alpha = (1 - cfg.lambda_reg * bls_lr) * alpha - bls_lr * n_grad

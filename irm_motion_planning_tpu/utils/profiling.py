@@ -1,8 +1,9 @@
 """Profiling hook (capability of ref: main.py:131-134).
 
-Wraps a region in ``jax.profiler.trace`` — the same API works on TPU
-(produces xplane/Perfetto traces).  The reference hardcoded an absolute home
-directory; we default to ./jax-trace and make the Perfetto link opt-in.
+Wraps a region in ``jax.profiler.trace``, which traces the GPU too
+(xplane/Perfetto traces; benchmarks/trace_solve.py reduces one).  The
+reference hardcoded an absolute home directory; we default to ./jax-trace
+and make the Perfetto link opt-in.
 """
 
 from __future__ import annotations

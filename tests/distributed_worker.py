@@ -16,10 +16,6 @@ def main():
     num_processes = int(sys.argv[2])
     port = sys.argv[3]
     outdir = sys.argv[4]
-    # Fleet backend under test: 'xla' or 'fused' (the production kernel
-    # path, interpret mode on CPU) — shard_map x pallas_call x multi-process
-    # gloo is otherwise only covered by the single-process dryrun.
-    backend = sys.argv[5] if len(sys.argv) > 5 else "xla"
 
     from irm_motion_planning_tpu.parallel import distributed as dist
 
@@ -40,7 +36,6 @@ def main():
     cfg = mp.PlannerConfig(
         n_timesteps=16, fixed_iters=True,
         max_inner_iteration=3, max_outer_iteration=2, max_bls_iteration=4,
-        pallas_block_b=2,  # must divide the 2-lane per-device shard
     )
     basis = mp.make_basis(cfg)
     mesh = meshlib.make_mesh()
@@ -52,9 +47,7 @@ def main():
     local = jax.tree_util.tree_map(lambda x: np.asarray(x)[sl], scns_global)
     scns = dist.global_scenarios_from_local(mesh, local)
 
-    run = sharded.make_shard_map_solver(cfg, basis, mesh, engine="fleet",
-                                        backend=backend,
-                                        interpret=backend != "xla")
+    run = sharded.make_shard_map_solver(cfg, basis, mesh, engine="fleet")
     res, stats = run(scns)
     jax.block_until_ready(res)
 

@@ -119,3 +119,24 @@ def test_generalized_joint_count():
     assert alpha.shape == (30, 5)
     traj, _ = mp.evaluate(cfg, basis, alpha)
     np.testing.assert_allclose(np.asarray(traj[-1]), 0.5, atol=1e-2)
+
+
+def test_make_basis_fits_on_the_host_cpu(setup, monkeypatch):
+    """The fit runs on the host CPU whatever the default device is; the
+    basis then lands on the default device, uncommitted, bitwise equal."""
+    cfg, basis = setup
+    seen = []
+    fit = rkhs.fit_basis
+
+    def spy(c):
+        seen.append(jax.config.jax_default_device)
+        return fit(c)
+
+    monkeypatch.setattr(rkhs, "fit_basis", spy)
+    dev = jax.devices()[3]
+    with jax.default_device(dev):
+        placed = mp.make_basis(cfg)
+    assert seen == [jax.local_devices(backend="cpu")[0]]
+    for a, b in zip(placed, basis):
+        assert a.devices() == {dev} and not a.committed
+        np.testing.assert_array_equal(a, b)

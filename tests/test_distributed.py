@@ -28,7 +28,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "distributed_worker.py")
 
 
-def _spawn(n, port, outdir, timeout=240, backend="xla"):
+def _spawn(n, port, outdir, timeout=240):
     procs = []
     for i in range(n):
         env = dict(
@@ -38,8 +38,7 @@ def _spawn(n, port, outdir, timeout=240, backend="xla"):
             XLA_FLAGS="--xla_force_host_platform_device_count=2",
         )
         procs.append(subprocess.Popen(
-            [sys.executable, WORKER, str(i), str(n), str(port), outdir,
-             backend],
+            [sys.executable, WORKER, str(i), str(n), str(port), outdir],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
             text=True,
         ))
@@ -47,16 +46,12 @@ def _spawn(n, port, outdir, timeout=240, backend="xla"):
     return [(p.returncode, o, e) for p, (o, e) in zip(procs, outs)]
 
 
-@pytest.mark.parametrize("backend", ["xla", "fused", "pallas"])
-def test_two_process_cluster_matches_single_process(tmp_path, backend):
-    """Every fleet backend the CLI can launch crosses the process boundary:
-    'xla', 'fused' (whole-solve kernel) and 'pallas' (per-step kernels) —
-    shard_map x pallas_call x multi-process gloo, interpret mode on CPU."""
-    # pid+backend-derived port: avoid collisions with concurrent runs /
-    # TIME_WAIT (the parametrizations run back to back).
-    off = {"xla": 0, "fused": 1, "pallas": 2}[backend]
-    port = 40000 + (os.getpid() * 3 + off) % 20000
-    results = _spawn(2, port, str(tmp_path), backend=backend)
+def test_two_process_cluster_matches_single_process(tmp_path):
+    """The shard_map fleet engine crosses the process boundary:
+    shard_map x multi-process gloo on CPU."""
+    # pid-derived port: avoid collisions with concurrent runs / TIME_WAIT.
+    port = 40000 + (os.getpid() * 3) % 20000
+    results = _spawn(2, port, str(tmp_path))
     for rc, out, err in results:
         assert rc == 0, err[-3000:]
 
@@ -92,15 +87,12 @@ def test_two_process_cluster_matches_single_process(tmp_path, backend):
     cfg = mp.PlannerConfig(
         n_timesteps=16, fixed_iters=True,
         max_inner_iteration=3, max_outer_iteration=2, max_bls_iteration=4,
-        pallas_block_b=2,
     )
     basis = mp.make_basis(cfg)
     mesh = meshlib.make_mesh(jax.devices()[:4])
     scns = mp.random_scenarios(cfg, jax.random.PRNGKey(3), 8)
     scns = meshlib.shard_batch(mesh, scns)
-    run = sharded.make_shard_map_solver(cfg, basis, mesh, engine="fleet",
-                                        backend=backend,
-                                        interpret=backend != "xla")
+    run = sharded.make_shard_map_solver(cfg, basis, mesh, engine="fleet")
     res, stats = run(scns)
     np.testing.assert_allclose(alpha, np.asarray(res.alpha), rtol=1e-6,
                                atol=1e-6)

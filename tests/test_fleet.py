@@ -1,4 +1,4 @@
-"""Fleet-solver tests: the batch-trailing MXU layout must agree with the
+"""Fleet-solver tests: the batch-trailing layout must agree with the
 vmap engine (math identity checked exactly at the op level; whole-solve
 quality within fp-path tolerance)."""
 
@@ -155,67 +155,7 @@ def test_fleet_rejects_sequential_bls_mode():
     basis = mp.make_basis(cfg)
     scns = mp.random_scenarios(cfg, jax.random.PRNGKey(0), 4)
     with pytest.raises(ValueError, match="sequential"):
-        fleet.fleet_solve(cfg, basis, scns, backend="xla")
+        fleet.fleet_solve(cfg, basis, scns)
     # GD has no line search; sequential mode is meaningless there and the
     # fleet engine accepts it.
-    fleet.fleet_solve(cfg, basis, scns, solver="gd", backend="xla")
-
-
-def test_choose_block_b_model():
-    """Lane-tile auto-sizing follows the calibrated scoped-VMEM model
-    (ops/pallas_step.py): measured-on-chip outcomes were 512 @ T=50,
-    256 @ T=400, 128 @ T=500, infeasible @ T=800."""
-    from irm_motion_planning_tpu.ops import pallas_step as ps
-
-    auto = mp.PlannerConfig(pallas_block_b=0)
-    assert ps.choose_block_b(auto, 50, 4096) == 512
-    assert ps.choose_block_b(auto, 400, 4096) == 256
-    assert ps.choose_block_b(auto, 500, 4096) == 128
-    assert ps.choose_block_b(auto, 800, 4096) is None
-    # explicit values are honored, with the legacy 128 fallback
-    explicit = mp.PlannerConfig(pallas_block_b=512)
-    assert ps.choose_block_b(explicit, 50, 4096) == 512
-    assert ps.choose_block_b(explicit, 50, 128) == 128
-    assert ps.choose_block_b(explicit, 50, 100) is None
-
-
-def test_kernel_backend_falls_back_to_xla_when_infeasible():
-    """T past the VMEM cap: fleet_solve warns and solves via the XLA
-    backend instead of dying in the Mosaic compiler."""
-    import warnings
-
-    cfg = mp.PlannerConfig(
-        n_timesteps=800, fixed_iters=True, max_inner_iteration=1,
-        max_outer_iteration=1, pallas_block_b=0,
-    )
-    basis = mp.make_basis(cfg)
-    scns = mp.random_scenarios(cfg, jax.random.PRNGKey(0), 4)
-    with warnings.catch_warnings(record=True) as w:
-        warnings.simplefilter("always")
-        res = fleet.fleet_solve(cfg, basis, scns, backend="fused")
-    assert any("falling back" in str(x.message) for x in w)
-    assert np.isfinite(np.asarray(res.stats.final_cost)).all()
-
-
-def test_per_step_backend_falls_back_on_lean_ultra_plans():
-    """backend='pallas' at lean/ultra problem sizes: the per-step kernels
-    have no solve-scope carry to shed, so fleet_solve must warn and route
-    to XLA rather than hand Mosaic a program past the scoped-VMEM cap
-    (the fused backend keeps the kernel tiers)."""
-    import warnings
-
-    cfg = mp.PlannerConfig(
-        n_timesteps=1200, fixed_iters=True, max_inner_iteration=1,
-        max_outer_iteration=1, pallas_block_b=0,
-    )
-    from irm_motion_planning_tpu.ops import pallas_step as ps
-
-    plan = ps.choose_kernel_plan(cfg, 1200, 128)
-    assert plan is not None and plan.lean  # the premise of the guard
-    basis = mp.make_basis(cfg)
-    scns = mp.random_scenarios(cfg, jax.random.PRNGKey(0), 128)
-    with warnings.catch_warnings(record=True) as w:
-        warnings.simplefilter("always")
-        res = fleet.fleet_solve(cfg, basis, scns, backend="pallas")
-    assert any("use backend='fused'" in str(x.message) for x in w)
-    assert np.isfinite(np.asarray(res.stats.final_cost)).all()
+    fleet.fleet_solve(cfg, basis, scns, solver="gd")

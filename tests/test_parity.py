@@ -25,7 +25,7 @@ GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
 
 # Final avg/max obstacle costs printed by the reference runs that produced
 # the goldens (ref: main.py:141-143) — single-sourced from the config so
-# every gate (bench.py, tpu_smoke.py, these tests) compares the same pins.
+# every gate (bench.py, chip_smoke.py, these tests) compares the same pins.
 REF_COST = mp.REFERENCE_FINAL_COST
 
 
@@ -61,7 +61,7 @@ def test_bitwise_parity_sequential(name, solver):
 
 
 def test_ladder_final_cost_gap():
-    """TPU-first parallel line search on the reference scene.
+    """Parallel (ladder) line search on the reference scene.
 
     With the path-consistent Armijo baseline (solvers/bls.py::
     _ladder_search, round 5) the ladder lands avg +0.53% / max parity —
@@ -108,7 +108,7 @@ def test_headline_schedule_quality():
     Round 1 shipped a uniform 10x15 horizon here, which truncated the heavy
     penalty rounds (the reference's early-exit solve spends 31/21/48 steps in
     rounds 0/3/4) and landed at avg 1.72 / max 2.68 — this test pins the fix.
-    bench.py gates the same numbers on the TPU fused backend."""
+    bench.py and chip_smoke.py gate the same numbers on the GPU."""
     from irm_motion_planning_tpu.solvers import fleet
 
     sched = mp.REFERENCE_INNER_SCHEDULE_BLS
@@ -120,7 +120,7 @@ def test_headline_schedule_quality():
     scn = mp.reference_scenario(cfg)
     scns = mp.replicate_scenario(scn, 8)
     res = jax.jit(
-        lambda b, s: fleet.fleet_solve(cfg, b, s, solver="bls", backend="xla")
+        lambda b, s: fleet.fleet_solve(cfg, b, s, solver="bls")
     )(basis, scns)
     alpha = res.alpha[0]
     pen0 = mp.Penalty(jnp.float32(0), jnp.float32(0))
@@ -158,7 +158,7 @@ def test_headline_schedule_quality_gd():
     basis = mp.make_basis(cfg)
     scn = mp.reference_scenario(cfg)
     res = jax.jit(
-        lambda b, s: fleet.fleet_solve(cfg, b, s, solver="gd", backend="xla")
+        lambda b, s: fleet.fleet_solve(cfg, b, s, solver="gd")
     )(basis, mp.replicate_scenario(scn, 8))
     alpha = res.alpha[0]
     pen0 = mp.Penalty(jnp.float32(0), jnp.float32(0))
@@ -212,7 +212,7 @@ def test_headline_schedule_quality_exact_ladder():
     basis = mp.make_basis(cfg)
     scn = mp.reference_scenario(cfg)
     res = jax.jit(
-        lambda b, s: fleet.fleet_solve(cfg, b, s, solver="bls", backend="xla")
+        lambda b, s: fleet.fleet_solve(cfg, b, s, solver="bls")
     )(basis, mp.replicate_scenario(scn, 8))
     alpha = res.alpha[0]
     pen0 = mp.Penalty(jnp.float32(0), jnp.float32(0))

@@ -132,15 +132,31 @@ def test_replanner_batched_fleet_engine(setup):
 
 
 def test_replanner_single_scene_fleet_engine(setup):
-    """Single-scene low-latency path: lane-padded fleet solve (on TPU this
-    is the fused kernel; the xla backend keeps the test portable)."""
+    """Single-scene low-latency path: a one-lane fleet solve."""
     cfg, _, scn = setup
-    rp = Replanner(cfg, budget_outer=1, budget_inner=10, engine="fleet",
-                   backend="xla")
+    rp = Replanner(cfg, budget_outer=1, budget_inner=10, engine="fleet")
     r1 = rp.plan(scn)
     assert r1.alpha.shape == (cfg.n_timesteps, cfg.n_joints)
     r2 = rp.plan(scn._replace(obstacles=scn.obstacles + 0.05))
     assert np.isfinite(float(r2.stats.final_cost))
+
+
+def test_replanner_single_scene_is_a_one_lane_fleet(setup):
+    """The single-scene fleet tick solves exactly one lane: no lane pad in
+    its program, and the same result as a one-lane fleet_solve."""
+    from irm_motion_planning_tpu.solvers import fleet
+
+    cfg, _, scn = setup
+    rp = Replanner(cfg, budget_outer=1, budget_inner=5, engine="fleet")
+    alpha0 = mp.init_alpha(rp.tick_cfg, rp.basis, scn.start, scn.goal)
+    hlo = rp._solve_jit.lower(rp.basis, scn, alpha0).as_text()
+    assert "x128x" not in hlo and "128x" not in hlo
+    tick = rp._solve_jit(rp.basis, scn, alpha0)
+    one = jax.jit(lambda b, s, a: fleet.fleet_solve(rp.tick_cfg, b, s, a))(
+        rp.basis, jax.tree_util.tree_map(lambda x: x[None], scn), alpha0[None])
+    np.testing.assert_allclose(np.asarray(tick.alpha), np.asarray(one.alpha[0]),
+                               rtol=1e-5, atol=1e-5)
+    assert int(tick.stats.inner_iters) == int(one.stats.inner_iters[0])
 
 
 def test_replanner_rollout_matches_tick_loop(setup):
@@ -151,13 +167,11 @@ def test_replanner_rollout_matches_tick_loop(setup):
         scn._replace(obstacles=scn.obstacles + 0.05 * (k + 1)) for k in range(3)
     ]
 
-    rp_loop = Replanner(cfg, budget_outer=1, budget_inner=8, engine="fleet",
-                        backend="xla")
+    rp_loop = Replanner(cfg, budget_outer=1, budget_inner=8, engine="fleet")
     for t in ticks:
         r_loop = rp_loop.plan(t)
 
-    rp_roll = Replanner(cfg, budget_outer=1, budget_inner=8, engine="fleet",
-                        backend="xla")
+    rp_roll = Replanner(cfg, budget_outer=1, budget_inner=8, engine="fleet")
     scn_ticks = jax.tree_util.tree_map(
         lambda *xs: jnp.stack(xs, axis=0), *ticks
     )
@@ -226,16 +240,14 @@ def test_cli_rejects_fleet_sequential():
 
 
 def test_cli_headline_configuration(tmp_path):
-    """The exact 920x benchmark configuration must be reproducible from the
-    CLI (VERDICT r2 item 6): the headline knobs (--inner-schedule reference,
-    --ladder-eval, --max-obstacles, --pallas-block-b, --recip-newton) all
-    plumb through to PlannerConfig.  backend=xla keeps it CPU-runnable; on
-    TPU the same flags with --backend fused reproduce bench.py's run."""
+    """The exact benchmark configuration must be reproducible from the CLI:
+    the headline knobs (--inner-schedule reference, --ladder-eval,
+    --max-obstacles) all plumb through to PlannerConfig; on the GPU the same
+    flags reproduce bench.py's run."""
     r = _run_cli(
-        ["--batch", "8", "--engine", "fleet", "--backend", "xla",
+        ["--batch", "8", "--engine", "fleet",
          "--fixed-iters", "true", "--inner-schedule", "reference",
-         "--ladder-eval", "linearized", "--max-obstacles", "11",
-         "--pallas-block-b", "512", "--recip-newton", "false"],
+         "--ladder-eval", "linearized", "--max-obstacles", "11"],
         str(tmp_path))
     assert r.returncode == 0, r.stderr[-2000:]
     assert "batch 8" in r.stdout
